@@ -56,8 +56,15 @@ def _pil(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)))
 
 
-def _assert_exact(data: bytes, **cfg_kw):
-    got = np.asarray(tpujpeg.decode(data, DecodeConfig(**cfg_kw)))
+def _assert_exact(data: bytes, device: bool = False, **cfg_kw):
+    """decode() (the staged path on the CPU), or with device=True the
+    fused device path through decode_batch_on_device."""
+    if device:
+        res = tpujpeg.decode_batch_on_device([data], DecodeConfig(**cfg_kw))
+        assert not res.errors, res.errors
+        got = np.asarray(res.images[0])
+    else:
+        got = np.asarray(tpujpeg.decode(data, DecodeConfig(**cfg_kw)))
     want = _pil(data)
     assert got.shape == want.shape
     assert np.array_equal(got, want)
@@ -73,27 +80,27 @@ def test_color_space_classifier():
 
 
 def test_cmyk_bit_exact_jnp():
-    _assert_exact(make_cmyk_jpeg(seed=1), transform_engine="jnp")
+    _assert_exact(make_cmyk_jpeg(seed=1))
 
 
 def test_cmyk_bit_exact_pallas():
-    _assert_exact(make_cmyk_jpeg(seed=2), transform_engine="pallas")
+    _assert_exact(make_cmyk_jpeg(seed=2), device=True)
 
 
 def test_rgb_passthrough_bit_exact_jnp():
-    _assert_exact(make_rgb_jpeg(seed=3), transform_engine="jnp")
+    _assert_exact(make_rgb_jpeg(seed=3))
 
 
 def test_rgb_passthrough_bit_exact_pallas():
-    _assert_exact(make_rgb_jpeg(seed=4), transform_engine="pallas")
+    _assert_exact(make_rgb_jpeg(seed=4), device=True)
 
 
 def test_ycck_bit_exact():
     # PIL can't *write* YCCK; reinterpret a CMYK file's Adobe flag so
     # both decoders run the YCCK->CMYK conversion on the same scan data.
     data = patch_adobe_transform(make_cmyk_jpeg(seed=5), 2)
-    _assert_exact(data, transform_engine="jnp")
-    _assert_exact(data, transform_engine="pallas")
+    _assert_exact(data)
+    _assert_exact(data, device=True)
 
 
 def test_jfif_beats_component_ids():
@@ -112,7 +119,7 @@ def make_jfif_420(w=64, h=48, seed=6):
 
 def test_cmyk_python_engine():
     _assert_exact(
-        make_cmyk_jpeg(seed=7), transform_engine="jnp", entropy_engine="python"
+        make_cmyk_jpeg(seed=7), entropy_engine="python"
     )
 
 

@@ -1,11 +1,10 @@
-"""Pallas kernel correctness (SURVEY.md §4 unit rows): interpret-mode
-kernels must match the jnp semantic reference bit-for-bit, and the full
-kernel pipeline must match PIL end-to-end."""
+"""Device-chain transform correctness (SURVEY.md §4 unit rows): the
+batched transform the fused chains end in (kernels/pipeline) must match
+PIL end-to-end, and the matmul IDCT must stay inside its tolerance."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from corpus import make_jpeg, pil_decode
@@ -13,35 +12,11 @@ from corpus import make_jpeg, pil_decode
 from tpujpeg import bitstream, transform
 from tpujpeg.config import DecodeConfig
 from tpujpeg.decoder import decode
-from tpujpeg.kernels import idct as idct_k
 from tpujpeg.kernels import pipeline as pipe_k
-from tpujpeg.kernels import sample_color as sc_k
-
-
-@pytest.fixture(scope="module")
-def blocks(rng=None):
-    r = np.random.default_rng(77)
-    coeffs = r.integers(-1024, 1024, size=(300, 64)).astype(np.int32)
-    # Realistic sparsity: most high-frequency coeffs are zero.
-    mask = r.random((300, 64)) < 0.7
-    coeffs[mask] = 0
-    qtab = r.integers(1, 255, size=(64,)).astype(np.int32)
-    return coeffs, qtab
-
-
-def test_idct_islow_kernel_bit_exact(blocks):
-    coeffs, qtab = blocks
-    ref = transform.idct8x8_islow(
-        transform.dequantize(jnp.asarray(coeffs), jnp.asarray(qtab))
-    )
-    got = idct_k.dequant_idct_islow(
-        jnp.asarray(coeffs), jnp.asarray(qtab), interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_idct_matmul_conformance():
-    """MXU variant: IEEE-1180-style tolerance vs the exact islow path
+    """Matmul variant: IEEE-1180-style tolerance vs the exact islow path
     (off-by-one rounding allowed on a tiny fraction of samples).
     Coefficients are forward-DCT'd real pixel blocks, so dequantized
     magnitudes stay in the range a conforming JPEG stream can produce
@@ -64,53 +39,11 @@ def test_idct_matmul_conformance():
         )
     ).astype(np.int32)
     got = np.asarray(
-        idct_k.dequant_idct_matmul(jnp.asarray(coeffs), jnp.asarray(qtab))
+        transform.dequant_idct_matmul(jnp.asarray(coeffs), jnp.asarray(qtab))
     ).astype(np.int32)
     diff = np.abs(ref - got)
     assert diff.max() <= 1
     assert (diff > 0).mean() < 0.05
-
-
-def _pad_edge(a, h, w):
-    return np.pad(a, ((0, h - a.shape[0]), (0, w - a.shape[1])), mode="edge")
-
-
-def test_upsample_color_h2v2_matches_reference():
-    r = np.random.default_rng(5)
-    hc, wc = 64, 128  # already aligned
-    cb = r.integers(0, 256, size=(hc, wc)).astype(np.uint8)
-    cr = r.integers(0, 256, size=(hc, wc)).astype(np.uint8)
-    y = r.integers(0, 256, size=(2 * hc, 2 * wc)).astype(np.uint8)
-    ref = transform.ycc_to_rgb(
-        jnp.asarray(y),
-        transform.upsample_h2v2_fancy(jnp.asarray(cb)),
-        transform.upsample_h2v2_fancy(jnp.asarray(cr)),
-    )
-    got = sc_k.upsample_color_h2v2(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got).transpose(1, 2, 0), np.asarray(ref)
-    )
-
-
-def test_upsample_color_h2v1_matches_reference():
-    r = np.random.default_rng(6)
-    h, wc = 64, 128
-    cb = r.integers(0, 256, size=(h, wc)).astype(np.uint8)
-    cr = r.integers(0, 256, size=(h, wc)).astype(np.uint8)
-    y = r.integers(0, 256, size=(h, 2 * wc)).astype(np.uint8)
-    ref = transform.ycc_to_rgb(
-        jnp.asarray(y),
-        transform.upsample_h2v1_fancy(jnp.asarray(cb)),
-        transform.upsample_h2v1_fancy(jnp.asarray(cr)),
-    )
-    got = sc_k.upsample_color_h2v1(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got).transpose(1, 2, 0), np.asarray(ref)
-    )
 
 
 PIPE_CASES = [
@@ -123,18 +56,24 @@ PIPE_CASES = [
 
 @pytest.mark.parametrize("case", PIPE_CASES, ids=["420", "422", "444", "gray"])
 def test_pipeline_bit_exact_vs_pil(case):
+    from tpujpeg.native import entropy as ne
+
     kw = dict(case)
     w, h = kw.pop("w"), kw.pop("h")
     data = make_jpeg(w, h, seed=11, **kw)
-    out = decode(data, DecodeConfig(transform_engine="pallas"))
-    np.testing.assert_array_equal(out, pil_decode(data))
+    jpeg = bitstream.parse(data)
+    coeffs = ne.decode_all_scans(jpeg)
+    out = pipe_k.transform_batch(
+        jpeg.frame, [c[None] for c in coeffs],
+        [jpeg.qtables[c.tq] for c in jpeg.frame.components], DecodeConfig(),
+        color=bitstream.color_space(jpeg),
+    )
+    np.testing.assert_array_equal(np.asarray(out[0]), pil_decode(data))
 
 
 def test_pipeline_matmul_idct_close_to_pil():
     data = make_jpeg(96, 64, seed=12, subsampling=2)
-    out = decode(
-        data, DecodeConfig(transform_engine="pallas", idct="matmul")
-    ).astype(np.int32)
+    out = decode(data, DecodeConfig(idct="matmul")).astype(np.int32)
     ref = pil_decode(data).astype(np.int32)
     # Color conversion amplifies a +-1 IDCT LSB slightly; stay tight.
     assert np.abs(out - ref).max() <= 3
@@ -142,7 +81,7 @@ def test_pipeline_matmul_idct_close_to_pil():
 
 
 def test_batched_pipeline_matches_single():
-    """One bucket, one dispatch: batched kernel path must equal per-image
+    """One bucket, one dispatch: the batched path must equal per-image
     decode and PIL for mixed content (SURVEY.md §3.5)."""
     import tpujpeg
 
@@ -150,7 +89,7 @@ def test_batched_pipeline_matches_single():
         make_jpeg(120, 88, seed=s, subsampling=2, kind=k)
         for s, k in [(1, "photo"), (2, "noise"), (3, "flat")]
     ]
-    res = tpujpeg.decode_batch(datas, DecodeConfig(transform_engine="pallas"))
+    res = tpujpeg.decode_batch(datas, DecodeConfig())
     assert not res.errors
     for d, img in zip(datas, res.images):
         np.testing.assert_array_equal(img, pil_decode(d))
@@ -164,7 +103,7 @@ def test_batched_pipeline_fault_isolation():
         b"not a jpeg",
         make_jpeg(64, 48, seed=2, subsampling=2),
     ]
-    res = tpujpeg.decode_batch(datas, DecodeConfig(transform_engine="pallas"))
+    res = tpujpeg.decode_batch(datas, DecodeConfig())
     assert set(res.errors) == {1}
     np.testing.assert_array_equal(res.images[0], pil_decode(datas[0]))
     np.testing.assert_array_equal(res.images[2], pil_decode(datas[2]))
@@ -173,14 +112,14 @@ def test_batched_pipeline_fault_isolation():
 
 def test_batched_progressive_via_native_entropy():
     """Progressive files in a batch: host native entropy (all four scan
-    kinds) + fused Pallas transform, bit-exact."""
+    kinds) + batched device transform, bit-exact."""
     import tpujpeg
 
     datas = [
         make_jpeg(120, 88, seed=s, subsampling=2, progressive=True)
         for s in range(3)
     ]
-    res = tpujpeg.decode_batch(datas, DecodeConfig(transform_engine="pallas"))
+    res = tpujpeg.decode_batch(datas, DecodeConfig())
     assert not res.errors
     for d, img in zip(datas, res.images):
         np.testing.assert_array_equal(img, pil_decode(d))

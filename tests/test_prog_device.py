@@ -150,7 +150,7 @@ def test_prog_to_rgb_merged_chain_bit_exact():
     data = make_jpeg(168, 120, seed=33, progressive=True, subsampling=2,
                      restart_blocks=4)
     jpegs = [bitstream.parse(data) for _ in range(2)]
-    cfg = DecodeConfig(transform_engine="pallas")
+    cfg = DecodeConfig()
     ref = np.asarray(Image.open(io.BytesIO(data)))
     rgbp, layoutp, failp = wprog.decode_all_scans_to_rgb_batch(
         jpegs, cfg, packed=True
@@ -186,7 +186,7 @@ def test_transform_batch_per_image_quantizers():
         jnp.asarray(np.stack([j.qtables[c.tq] for j in jpegs]))
         for c in frame.components
     ]
-    cfg = DecodeConfig(transform_engine="pallas")
+    cfg = DecodeConfig()
     rgb = kp.transform_batch(frame, coeff_stack, qtabs, cfg,
                              color="ycbcr")
     for i, d in enumerate((d1, d2)):
@@ -312,16 +312,15 @@ def test_prog_batch_mixed_quantizers_share_group():
 
 
 def test_ac_first_table_dynamic_matches_baked():
-    """The table-dynamic AC-first kernel (Huffman table as a [3,64]
-    runtime operand) must produce EXACTLY the baked kernel's output —
-    same accumulator adds, same error vector — for every AC-first scan
-    of a progressive stream."""
-    import jax
+    """The AC-first kernel fed its Huffman table as a RUNTIME operand
+    must produce EXACTLY what it produces from the baked constants —
+    same coefficients, same error vector — for every AC-first scan of a
+    progressive stream."""
+    from tpujpeg.kernels.wavefront_pallas import pack_tables
 
     data = make_jpeg(96, 80, seed=91, progressive=True, subsampling=2,
                      restart_blocks=8)
     jpeg = bitstream.parse(data)
-    interpret = jax.default_backend() != "tpu"
     found = 0
     for k, scan in enumerate(jpeg.scans):
         if scan.ss == 0 or scan.ah != 0:
@@ -335,12 +334,11 @@ def test_ac_first_table_dynamic_matches_baked():
         args = (plan.bits, plan.lane_m, plan.seg_bits)
         out_b, err_b = wprog.run_ac_first_jit(
             *args, static=static_baked, n_groups=plan.n_groups,
-            n_mcus=plan.n_mcus, interpret=interpret,
+            n_mcus=plan.n_mcus,
         )
-        tbl = wprog.dyn_table_pack(sk.tbls[0])[None]
         out_d, err_d = wprog.run_ac_first_jit(
             *args, static=static_dyn, n_groups=plan.n_groups,
-            n_mcus=plan.n_mcus, interpret=interpret, tbl=tbl,
+            n_mcus=plan.n_mcus, tbl=pack_tables(sk.tbls),
         )
         np.testing.assert_array_equal(np.asarray(err_b), np.asarray(err_d))
         np.testing.assert_array_equal(np.asarray(out_b), np.asarray(out_d))

@@ -1,5 +1,5 @@
 """Block-synchronous Pallas wavefront decoder (kernels/wavefront_pallas)
-vs the Python oracle — interpret mode on CPU (SURVEY.md §7.2 #1)."""
+vs the Python oracle — interpret mode on the CPU (SURVEY.md §7.2 #1)."""
 
 import numpy as np
 import pytest
@@ -124,7 +124,7 @@ def test_fused_pixels_batch_and_fault_isolation():
 
 
 def test_fused_pixels_rejects_no_restart_oversize():
-    # One 3.5KB segment exceeds the VMEM row cap -> explicit fallback.
+    # One 3.5KB segment exceeds MAX_WORDS -> explicit fallback.
     data = make_jpeg(96, 64, seed=9, subsampling=0)
     with pytest.raises(JpegUnsupportedError):
         wp.decode_batch_to_rgb([bitstream.parse(data)])
@@ -231,7 +231,7 @@ def test_fused_pixels_mixed_quantizers_and_intervals():
 
 
 def test_norst_device_decode_matches_oracle():
-    """Marker-free 512x512 stream (way beyond one VMEM row): skeleton
+    """Marker-free 512x512 stream (way beyond MAX_WORDS): skeleton
     scan splits it into lanes, kernel decodes with local predictors,
     exclusive-prefix DC fixup recovers the true coefficients."""
     data = make_jpeg(512, 512, seed=5, subsampling=2)
@@ -283,7 +283,7 @@ def test_norst_truncated_stream_raises():
 
 
 def test_huge_restart_interval_segmented_skeleton_decode():
-    """Restart-segmented stream whose segments exceed the VMEM row cap:
+    """Restart-segmented stream whose segments exceed MAX_WORDS:
     the skeleton scan sub-splits each marker segment (every | DRI) and
     the DC prefix fixup resets at marker boundaries — closing the last
     fused-kernel scope gap (VERDICT round 1 #7 item 3)."""
@@ -331,7 +331,7 @@ def test_norst_fused_rgb_matches_pil():
 
 
 def test_norst_fused_rgb_oversize_dri_segments():
-    """Restart-segmented stream whose segments exceed the VMEM row cap
+    """Restart-segmented stream whose segments exceed MAX_WORDS
     takes the same fused path: sub-split lanes, predictors primed with
     per-marker-segment resets."""
     data = make_jpeg(512, 256, seed=22, subsampling=2, restart_blocks=192)

@@ -2,22 +2,20 @@
 "roofline sanity"; VERDICT r4 missing #4 / next #6).
 
 The kernel's work unit is a lockstep TRIP: all `lane_group` lanes of a
-group advance AC_SYMS_PER_TRIP symbols of the SAME block position
-together, so a group's trip count for one block is
-max_over_lanes(ceil(ac_symbols / AC_SYMS_PER_TRIP)). Every quantity
-below is computed EXACTLY from the decoded coefficients (each (run,
+program advance one AC symbol of the SAME block position together, so a
+program's trip count for one block is max_over_lanes(ac_symbols). Every
+quantity below is computed EXACTLY from the decoded coefficients (each (run,
 size) pair, ZRL and EOB reconstructs from the zigzag nonzero pattern)
 plus the plan's real lane->group packing; nothing is sampled.
 
 Reports, per the bench corpus:
   - symbols/MP and blocks/MP (the work the stream demands),
-  - total lockstep trips and the divergence+pairing waste
+  - total lockstep trips and the divergence waste
     (1 - useful_symbol_slots / issued_symbol_slots),
   - measured kernel-only wall clock -> ns/trip and symbols/s,
-  - HBM bytes/MP of the full chain vs the v5e HBM roof,
-  - the VPU-issue model: hand-counted vreg-issues per trip (see
-    BASELINE.md "Roofline" for the derivation) vs the chip's issue
-    capacity, giving the model-implied ceiling.
+  - device-memory bytes/MP of the full chain vs the memory roof of the
+    device it ran on (PEAK_BYTES_PER_S, keyed by device_kind; an
+    unknown device is an error).
 
 Usage: python tools/roofline.py  ->  one JSON line.
 Env: BENCH_SIZE/BENCH_BATCH/BENCH_RESTART_BLOCKS as bench.py.
@@ -35,6 +33,12 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 
 import numpy as np
+
+# Device-memory bandwidth per device_kind (NVIDIA H100 SXM data sheet:
+# 3.35 TB/s of HBM3 at the full 700 W power limit).
+PEAK_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
 
 
 def block_ac_symbols(zz: np.ndarray) -> np.ndarray:
@@ -81,7 +85,10 @@ def main() -> int:
     lg = plan.lane_group
     G = plan.n_groups
     M = plan.n_mcus
-    unroll = wp.AC_SYMS_PER_TRIP
+    kind = jax.devices()[0].device_kind
+    if kind not in PEAK_BYTES_PER_S:
+        raise SystemExit(f"roofline: no peak bandwidth for {kind!r}")
+    peak = PEAK_BYTES_PER_S[kind]
 
     # --- Exact per-(lane, mcu, block) AC symbol counts. ---
     # b_pos order must match _make_kernel: per scan comp, v-major then h.
@@ -122,18 +129,16 @@ def main() -> int:
         S[l, :nm] = per_img_syms[img][m0 : m0 + nm]
     S = S.reshape(G, lg, M, B)
 
-    # --- Lockstep trips: group-max of per-lane ceil(syms/unroll). ---
-    lane_trips = -(-S // unroll)  # ceil
-    trips = int(lane_trips.max(axis=1).sum())
-    # Issued symbol slots = trips * unroll * lanes-in-group; useful
-    # slots = actual symbols. The gap is divergence (lanes waiting on
-    # the group max) + pairing (odd symbol counts rounding up).
-    issued = trips * unroll * lg
+    # --- Lockstep trips: program-max of per-lane symbols. ---
+    trips = int(S.max(axis=1).sum())
+    # Issued symbol slots = trips * lanes-in-program; useful slots =
+    # actual symbols. The gap is divergence (lanes waiting on the
+    # program's slowest lane).
+    issued = trips * lg
     waste = 1.0 - total_ac / issued
     dc_rounds = G * M * B  # straight-line DC sections (one per grid pos)
 
     # --- Measured kernel-only wall clock (cached program). ---
-    interpret = jax.default_backend() != "tpu"
     plan_static = plan.static_key("pixels")
     bits = jax.device_put(jnp.asarray(plan.bits))
     lane_m = jax.device_put(jnp.asarray(plan.lane_m))
@@ -144,8 +149,7 @@ def main() -> int:
     @jax.jit
     def prog_a(bits, lane_m, seg_bits, lane_q):
         out, err = wp.run_wavefront(
-            bits, lane_m, seg_bits, plan_static, plan.n_groups, interpret,
-            lane_q,
+            bits, lane_m, seg_bits, plan_static, plan.n_groups, lane_q,
         )
         dep = sum(jnp.sum(o[..., -1].astype(jnp.int32)) for o in out)
         return dep + jnp.sum(err)
@@ -158,12 +162,11 @@ def main() -> int:
         times.append(time.perf_counter() - t0)
     kernel_s = min(times)
 
-    # Per-group-trip wall clock: groups run CONCURRENTLY across the
-    # grid (G x M grid; Mosaic pipelines grid steps), so wall ns/trip
-    # reflects both the serial chain and cross-group overlap.
+    # Per-program-trip wall clock: programs run CONCURRENTLY across the
+    # SMs, so wall ns/trip reflects both the serial chain and overlap.
     ns_per_trip = kernel_s * 1e9 / trips
 
-    # --- HBM traffic of the full chain (theoretical bytes). ---
+    # --- Device-memory traffic of the full chain (theoretical bytes). ---
     px = size * size * nimg
     bytes_in = plan.bits.nbytes
     # kernel out: packed int32 words, sum(v*8*h*2) words per MCU.
@@ -175,7 +178,7 @@ def main() -> int:
     # color: read planar, write packed16 RGB (3 B/px).
     bytes_color = planar + 3 * px
     hbm_total = bytes_in + 2 * bytes_kernel_out + bytes_assembly + bytes_color
-    hbm_roof_s = hbm_total / 819e9  # v5e HBM 819 GB/s
+    hbm_roof_s = hbm_total / peak
 
     print(json.dumps({
         "metric": "roofline_fused_kernel",
@@ -189,12 +192,11 @@ def main() -> int:
         "lockstep": {
             "lane_group": lg,
             "groups": G,
-            "unroll": unroll,
             "trips": trips,
             "dc_rounds": dc_rounds,
-            "divergence_plus_pairing_waste": round(waste, 4),
+            "divergence_waste": round(waste, 4),
             "mean_lane_trips_over_max": round(
-                float(lane_trips.mean(axis=1).sum()) / trips, 4
+                float(S.mean(axis=1).sum()) / trips, 4
             ),
         },
         "measured": {
@@ -203,11 +205,13 @@ def main() -> int:
             "ns_per_group_trip": round(ns_per_trip, 2),
             "ac_symbols_per_s": round(total_ac / kernel_s / 1e9, 3),
             "platform": jax.devices()[0].platform,
+            "device_kind": kind,
         },
         "hbm": {
             "bytes_per_px": round(hbm_total / px, 2),
             "chain_bytes_total": hbm_total,
-            "hbm_time_at_819GBs_s": round(hbm_roof_s, 4),
+            "peak_bytes_per_s": peak,
+            "hbm_time_at_peak_s": round(hbm_roof_s, 4),
             "hbm_bound_mp_per_s": round(total_mp / hbm_roof_s, 1),
             "fraction_of_hbm_roof": round(hbm_roof_s / kernel_s, 4),
         },

@@ -48,7 +48,6 @@ def _write_output(path: str, arr: np.ndarray) -> None:
 def _cfg_from_args(args) -> DecodeConfig:
     return DecodeConfig(
         entropy_engine=args.entropy,
-        transform_engine=args.transform,
         fancy_upsampling=not args.no_fancy,
     )
 
@@ -62,7 +61,6 @@ def main(argv=None) -> int:
     pd.add_argument("output")
     pd.add_argument("--entropy", default="auto",
                     choices=["auto", "python", "native", "wavefront"])
-    pd.add_argument("--transform", default="auto", choices=["auto", "jnp", "pallas"])
     pd.add_argument("--no-fancy", action="store_true")
     pd.add_argument("--profile", default=None, metavar="DIR",
                     help="dump a jax.profiler trace of the decode to DIR")
@@ -75,7 +73,6 @@ def main(argv=None) -> int:
     pb.add_argument("--repeats", type=int, default=5)
     pb.add_argument("--entropy", default="auto",
                     choices=["auto", "python", "native", "wavefront"])
-    pb.add_argument("--transform", default="auto", choices=["auto", "jnp", "pallas"])
     pb.add_argument("--no-fancy", action="store_true")
 
     pba = sub.add_parser(
@@ -88,11 +85,9 @@ def main(argv=None) -> int:
     pba.add_argument("--manifest", default=None)
     pba.add_argument("--chunk", type=int, default=64)
     pba.add_argument("--on-device", action="store_true",
-                     help="full on-chip wavefront+Pallas path")
+                     help="full on-device fused path (decode_batch_pipelined)")
     pba.add_argument("--entropy", default="auto",
                      choices=["auto", "python", "native", "wavefront"])
-    pba.add_argument("--transform", default="auto",
-                     choices=["auto", "jnp", "pallas"])
     pba.add_argument("--no-fancy", action="store_true")
 
     args = p.parse_args(argv)

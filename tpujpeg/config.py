@@ -4,22 +4,18 @@ system"). Everything is defaulted so `tpujpeg.decode(data)` just works."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeConfig:
-    # Entropy stage: 'auto' picks native C when available (and the Pallas
-    # wavefront decoder on TPU when the stream is restart-segmented),
-    # falling back to the pure-Python oracle.
+    # Entropy stage of the staged path: 'auto' picks native C when
+    # available, falling back to the pure-Python oracle; 'wavefront' is
+    # the device kernel. (On the GPU, decode() first tries the fused
+    # single-dispatch chain — see decoder.decode.)
     entropy_engine: str = "auto"  # 'auto' | 'python' | 'native' | 'wavefront'
 
-    # Transform stage: 'jnp' = vectorized XLA ops (semantic reference),
-    # 'pallas' = fused Pallas kernels (TPU fast path).
-    transform_engine: str = "auto"  # 'auto' | 'jnp' | 'pallas'
-
-    # IDCT variant: 'islow' is bit-exact vs libjpeg; 'matmul' uses the
-    # MXU with float32 (libjpeg-conformant tolerance, faster).
+    # IDCT variant: 'islow' is bit-exact vs libjpeg; 'matmul' is one
+    # float32 matrix product per block (libjpeg-conformant tolerance).
     idct: str = "islow"  # 'islow' | 'matmul'
 
     # libjpeg do_fancy_upsampling equivalent (default on, like libjpeg).
@@ -34,17 +30,13 @@ class DecodeConfig:
     # Mesh axis name used by batched / sharded decode paths.
     mesh_axis: str = "data"
 
-    # Optional max VMEM bytes a wavefront launch may assume for the
-    # bitstream slice (None = derive from platform).
-    wavefront_vmem_budget: Optional[int] = None
-
-    # Progressive scan-kernel Huffman tables: 'baked' compiles the
-    # tables into the chain (fastest kernels, but every distinct
-    # optimized-table set costs a fresh chain compile — libjpeg emits
-    # per-image tables for progressive); 'dynamic' passes tables as
-    # runtime operands (one compiled chain per scan-script shape,
-    # kernels measured ~1.2x slower); 'auto' uses dynamic for
-    # singleton-table groups and baked for groups that share tables.
+    # Progressive scan chains' Huffman tables: 'baked' compiles the
+    # tables into the chain as constants (every distinct optimized-table
+    # set costs a fresh chain compile — libjpeg emits per-image tables
+    # for progressive); 'dynamic' passes them as runtime operands (one
+    # compiled chain per scan-script shape); 'auto' uses dynamic for
+    # singleton groups and baked for groups that share tables. The scan
+    # kernels read the table operand the same way in both forms.
     prog_tables: str = "auto"  # 'auto' | 'baked' | 'dynamic'
 
 

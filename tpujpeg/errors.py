@@ -2,7 +2,7 @@
 
 The reference (xinfushe/oclJPEGDecoder, empty mount — see SURVEY.md §0) is
 reconstructed as using `clGetError`-style check-and-abort (SURVEY.md §5
-"Failure detection"). The TPU-native build replaces that with a typed error
+"Failure detection"). This build replaces that with a typed error
 hierarchy so that batch decode can isolate per-image failures
 (SURVEY.md §5: "a corrupt JPEG marks its slot invalid, never kills the
 batch").

@@ -1,8 +1,7 @@
-"""Kernel-path whole-frame transform (DecodeConfig.transform_engine=
-'pallas'): fused Pallas dequant+IDCT, then fused upsample+color, with
-jnp fallbacks for layouts the kernels don't cover (exotic sampling
-ratios, 4-component, non-fancy upsampling). Must produce byte-identical
-output to transform.transform_frame — tests/test_kernels.py asserts it.
+"""Batched whole-frame transform for the device chains: dequant + IDCT,
+then upsample + color, as plain jnp that XLA fuses. Must produce
+byte-identical output to transform.transform_frame — the fused decode
+paths' tests assert it against PIL.
 
 Everything is built batched ([N, ...] with one device dispatch per
 bucket, SURVEY.md §3.5); the single-image path is the N=1 case.
@@ -18,32 +17,6 @@ import jax.numpy as jnp
 
 from .. import bitstream, transform as T
 from ..config import DecodeConfig
-from . import idct as idct_k
-from . import sample_color as sc_k
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _cm_to_planes(out_cm: jnp.ndarray, n: int, hb: int, wb: int) -> jnp.ndarray:
-    """[64, N*hb*wb] coefficient-major samples -> [N, hb*8, wb*8] rasters."""
-    return (
-        out_cm.reshape(8, 8, n, hb, wb)
-        .transpose(2, 3, 0, 4, 1)
-        .reshape(n, hb * 8, wb * 8)
-    )
-
-
-def _edge_pad(planes: jnp.ndarray, h: int, w: int) -> jnp.ndarray:
-    """Pad [N, ., .] to [N, h, w] replicating bottom/right edges, so the
-    fancy filters' neighbor taps in the padding region replicate
-    libjpeg's edge behavior; padded outputs fall to the final crop."""
-    return jnp.pad(
-        planes,
-        ((0, 0), (0, h - planes.shape[1]), (0, w - planes.shape[2])),
-        mode="edge",
-    )
 
 
 def _make_frame(key: Tuple) -> bitstream.Frame:
@@ -63,8 +36,8 @@ def _make_frame(key: Tuple) -> bitstream.Frame:
 
 
 def packed_layout_applies(frame, config: DecodeConfig, color: str) -> bool:
-    """True iff _color_stage would honor packed=True for this frame:
-    the fused h2v2/h2v1 upsample+color path with an even frame width.
+    """True iff _color_stage honors packed=True for this frame: YCbCr
+    with h2v2 or h2v1 chroma, fancy upsampling and an even frame width.
     Callers use this STATIC predicate to know the output form."""
     if color != "ycbcr" or frame.n_components != 3:
         return False
@@ -78,64 +51,23 @@ def packed_layout_applies(frame, config: DecodeConfig, color: str) -> bool:
     )
 
 
-def _color_stage(frame, expansions, planes, fancy: bool, interpret: bool,
-                 color: str, packed: bool = False):
-    """Shared tail: cropped sample planes -> RGB/gray/CMYK raster.
+def pack16(rgb: jnp.ndarray) -> jnp.ndarray:
+    """[N, H, W, 3] uint8 -> [N, 3, H, W//2] uint16 whose little-endian
+    bytes are the planar u8 raster (the `packed16` layout)."""
+    n, h, w, c = rgb.shape
+    planar = rgb.transpose(0, 3, 1, 2).reshape(n, c, h, w // 2, 2)
+    return jax.lax.bitcast_convert_type(planar, jnp.uint16)
 
-    packed: return the color kernels' column-packed planar uint16
-    [N, 3, H, W//2] instead of NHWC uint8 — the uint16 array's
-    little-endian bytes ARE the planar u8 raster, so consumers bitcast
-    for free and the chain ends AT the color kernel (no u16->u8 retile,
-    no NHWC layout). Only taken for even frame widths on the fused
-    h2v2/h2v1 paths; anything else falls back to NHWC uint8."""
-    want_packed = packed and frame.width % 2 == 0
+
+def _color_stage(frame, expansions, planes, fancy: bool, color: str,
+                 packed: bool = False):
+    """Shared tail: cropped sample planes -> RGB/gray/CMYK raster
+    (transform_frame's tail, vmapped over the batch). packed: return
+    the pack16 layout instead of NHWC (the caller checked
+    packed_layout_applies)."""
     if color == "gray":
         return planes[0][:, : frame.height, : frame.width]
 
-    if color == "ycbcr" and frame.n_components == 3 and fancy:
-        y, cb, cr = planes
-        if expansions == [(1, 1), (2, 2), (2, 2)]:
-            hc = _round_up(cb.shape[1], sc_k.ROW_TILE)
-            wc = _round_up(cb.shape[2], 128)
-            rgb = sc_k.upsample_color_h2v2_batch(
-                _edge_pad(y, 2 * hc, 2 * wc),
-                _edge_pad(cb, hc, wc),
-                _edge_pad(cr, hc, wc),
-                interpret=interpret,
-                packed_words=want_packed,
-            )
-            if want_packed:
-                return rgb[:, :, : frame.height, : frame.width // 2]
-        elif expansions == [(1, 1), (2, 1), (2, 1)]:
-            h = _round_up(cb.shape[1], sc_k.ROW_TILE)
-            wc = _round_up(cb.shape[2], 128)
-            rgb = sc_k.upsample_color_h2v1_batch(
-                _edge_pad(y, h, 2 * wc),
-                _edge_pad(cb, h, wc),
-                _edge_pad(cr, h, wc),
-                interpret=interpret,
-                packed_words=want_packed,
-            )
-            if want_packed:
-                return rgb[:, :, : frame.height, : frame.width // 2]
-        elif expansions == [(1, 1), (1, 1), (1, 1)]:
-            h = _round_up(y.shape[1], sc_k.ROW_TILE)
-            w = _round_up(y.shape[2], 128)
-            rgb = sc_k.color_444_batch(
-                _edge_pad(y, h, w),
-                _edge_pad(cb, h, w),
-                _edge_pad(cr, h, w),
-                interpret=interpret,
-            )
-        else:
-            rgb = None
-        if rgb is not None:
-            # [N, 3, H, W] -> [N, H, W, 3], crop MCU padding.
-            return rgb[:, :, : frame.height, : frame.width].transpose(
-                0, 2, 3, 1
-            )
-
-    # jnp fallback: replicate transform_frame's tail, vmapped.
     def tail(planes_one):
         ups = []
         for ci in range(frame.n_components):
@@ -144,24 +76,20 @@ def _color_stage(frame, expansions, planes, fancy: bool, interpret: bool,
             ups.append(up[: frame.height, : frame.width])
         return T.finish_color(ups, color)
 
-    return jax.vmap(tail)(planes)
+    rgb = jax.vmap(tail)(planes)
+    return pack16(rgb) if packed else rgb
 
 
 @functools.lru_cache(maxsize=128)
-def _build_batch(key: Tuple, idct_variant: str, fancy: bool, interpret: bool,
-                 color: str, has_dc: bool = False, packed: bool = False,
+def _build_batch(key: Tuple, idct_variant: str, fancy: bool, color: str,
+                 has_dc: bool = False, packed: bool = False,
                  per_image_q: bool = False):
     """Jitted [N, ...]-batched transform for one frame geometry. With
     has_dc, a separate per-block DC column rides in (the progressive
     decoder keeps DC out of the [blocks, 64] state — see
-    wavefront_prog._scatter_dc_s) and merges here: in the islow path
-    the coefficient-major transpose already touches every element, so
-    replacing row 0 is free. With per_image_q, qtabs[ci] is [N, 64]
-    (one quantizer per image) and dequant happens in XLA before the
-    kernel — same int32 multiply, fused into the coefficient-major
-    transpose, with the kernel's SMEM quantizer set to ones. packed:
-    see _color_stage (column-packed planar uint16 output when the frame
-    qualifies, per packed_layout_applies)."""
+    wavefront_prog._scatter_dc_s) and merges here. With per_image_q,
+    qtabs[ci] is [N, 64] (one quantizer per image). packed: see
+    _color_stage."""
     frame = _make_frame(key)
     expansions = [
         (frame.hmax // c.h, frame.vmax // c.v) for c in frame.components
@@ -173,56 +101,29 @@ def _build_batch(key: Tuple, idct_variant: str, fancy: bool, interpret: bool,
         planes: List[jnp.ndarray] = []
         for ci, c in enumerate(frame.components):
             nb = c.padded_hb * c.padded_wb
-            flat = coeffs[ci].reshape(n * nb, 64)
-            if per_image_q:
-                flat = (
-                    flat.reshape(n, nb, 64) * qtabs[ci][:, None, :]
-                ).reshape(n * nb, 64)
-                q_kernel = jnp.ones((64,), jnp.int32)
-            else:
-                q_kernel = qtabs[ci]
+            blk = coeffs[ci].reshape(n, nb, 64)
             if has_dc:
-                # DC rides in as its own column (wavefront_prog keeps it
-                # out of the [blocks, 64] state); dequant it separately
-                # and merge as a ROW write post-transpose (a column set
-                # into the big flat array touches every (8,128) tile).
-                dc_flat = dcs[ci].reshape(n * nb)
-                if per_image_q:
-                    dc_flat = (
-                        dc_flat.reshape(n, nb) * qtabs[ci][:, :1]
-                    ).reshape(n * nb)
+                blk = blk.at[:, :, 0].set(dcs[ci].reshape(n, nb))
+            q = qtabs[ci]
+            if per_image_q:
+                blk = blk * q[:, None, :]
+                q = 1
+            flat = blk.reshape(n * nb, 64)
             if idct_variant == "matmul":
-                if has_dc:
-                    flat = flat.at[:, 0].set(dc_flat)
-                samples = idct_k.dequant_idct_matmul(flat, q_kernel)
-                plane = T.blocks_to_plane(
-                    samples, n * c.padded_hb, c.padded_wb
-                ).reshape(n, c.padded_hb * 8, c.padded_wb * 8)
+                samples = T.dequant_idct_matmul(flat, q)
             else:
-                pad = (-(n * nb)) % idct_k.LANE_TILE
-                cm = jnp.pad(flat, ((0, pad), (0, 0))).T
-                if has_dc:
-                    # Raw DC when the kernel dequants (it scales row 0
-                    # by q[0]); already-dequantized DC when q_kernel is
-                    # ones (per_image_q).
-                    cm = cm.at[0].set(jnp.pad(dc_flat, (0, pad)))
-                out_cm = idct_k.dequant_idct_islow_cm(
-                    cm, q_kernel, interpret=interpret
-                )
-                plane = _cm_to_planes(
-                    out_cm[:, : n * nb], n, c.padded_hb, c.padded_wb
-                )
+                samples = T.idct8x8_islow(T.dequantize(flat, q))
+            plane = T.blocks_to_plane(
+                samples, n * c.padded_hb, c.padded_wb
+            ).reshape(n, c.padded_hb * 8, c.padded_wb * 8)
             planes.append(plane[:, : c.dheight, : c.dwidth])
-        return _color_stage(
-            frame, expansions, planes, fancy, interpret, color,
-            packed=packed,
-        )
+        return _color_stage(frame, expansions, planes, fancy, color, packed)
 
     return jax.jit(fn)
 
 
 @functools.lru_cache(maxsize=128)
-def _build_planes_batch(key: Tuple, fancy: bool, interpret: bool, color: str,
+def _build_planes_batch(key: Tuple, fancy: bool, color: str,
                         packed: bool = False):
     """Jitted color/upsample stage for pre-IDCT'd sample planes
     ([N, padded_h, padded_w] uint8 per component — the fused wavefront
@@ -237,28 +138,28 @@ def _build_planes_batch(key: Tuple, fancy: bool, interpret: bool, color: str,
             p[:, : c.dheight, : c.dwidth]
             for p, c in zip(planes_in, frame.components)
         ]
-        return _color_stage(
-            frame, expansions, planes, fancy, interpret, color,
-            packed=packed,
-        )
+        return _color_stage(frame, expansions, planes, fancy, color, packed)
 
     return jax.jit(fn)
+
+
+def _frame_key(frame) -> Tuple:
+    return (
+        frame.height,
+        frame.width,
+        tuple((c.h, c.v) for c in frame.components),
+    )
 
 
 def transform_planes_batch(frame, planes, config: DecodeConfig,
                            color: str = None, packed: bool = False):
     """planes[ci]: uint8[N, padded_h, padded_w] sample planes.
-    packed: see _color_stage — planar column-packed uint16 output."""
-    key = (
-        frame.height,
-        frame.width,
-        tuple((c.h, c.v) for c in frame.components),
-    )
+    packed: see _color_stage — the caller checked
+    packed_layout_applies."""
     if color is None:
         color = T.default_color(frame.n_components)
-    interpret = jax.default_backend() != "tpu"
     fn = _build_planes_batch(
-        key, config.fancy_upsampling, interpret, color, packed
+        _frame_key(frame), config.fancy_upsampling, color, packed
     )
     return fn([jnp.asarray(p) for p in planes])
 
@@ -277,17 +178,11 @@ def transform_batch(
     (optional): int32[N, padded_blocks] DC columns to merge into
     coefficient slot 0 (see _build_batch). Returns uint8[N, H, W, 3]
     (or [N, H, W] grayscale, [N, H, W, 4] CMYK); with packed (and
-    packed_layout_applies) the column-packed planar uint16 form."""
-    key = (
-        frame.height,
-        frame.width,
-        tuple((c.h, c.v) for c in frame.components),
-    )
+    packed_layout_applies) the pack16 form."""
     if color is None:
         color = T.default_color(frame.n_components)
-    interpret = jax.default_backend() != "tpu"
     fn = _build_batch(
-        key, config.idct, config.fancy_upsampling, interpret, color,
+        _frame_key(frame), config.idct, config.fancy_upsampling, color,
         has_dc=dcs is not None,
         packed=packed and packed_layout_applies(frame, config, color),
         per_image_q=getattr(qtabs[0], "ndim", 1) == 2,
@@ -298,17 +193,3 @@ def transform_batch(
     if dcs is None:
         return fn(*args)
     return fn(*args, [jnp.asarray(d) for d in dcs])
-
-
-def transform_frame(
-    frame: bitstream.Frame,
-    coeffs: Sequence,
-    qtabs: Sequence,
-    config: DecodeConfig,
-    color: str = None,
-):
-    out = transform_batch(
-        frame, [jnp.asarray(c)[None] for c in coeffs], qtabs, config,
-        color=color,
-    )
-    return out[0]

@@ -9,16 +9,14 @@ LUT, updates per-lane cursors/predictors, and appends at most one
 coefficient per lane to step-indexed emission buffers; one sorted
 scatter materializes the coefficient tensor after the loop (emission
 positions are per-lane monotonic and globally unique, so the scatter
-carries indices_are_sorted + unique_indices — the fast TPU lowering;
-the naive unsorted scatter serializes and costs >100 ms).
+carries indices_are_sorted + unique_indices instead of serializing as
+an unsorted scatter).
 
-This is the XLA formulation (jnp ops under jax.jit + lax.while_loop):
-it runs identically on CPU (the conformance/test path, config 1) and
-TPU. All data-dependent control flow is masked vector arithmetic — the
-TPU-native shape of a bit-serial algorithm. Measured on v5e: the decode
-loop itself is sub-millisecond for a 4 MP image at 4096 lanes; wall
-time is dominated by host<->device transfers, so the public APIs keep
-coefficients ON DEVICE and hand them straight to the transform kernels.
+This is the plain XLA formulation (jnp ops under jax.jit +
+lax.while_loop): it runs identically on the CPU (the conformance/test
+path, config 1) and the GPU. All data-dependent control flow is masked
+vector arithmetic. The public APIs keep coefficients ON DEVICE and hand
+them straight to the transform.
 
 Batching: any number of (image, scan) pairs merge into ONE launch —
 lanes carry per-lane base offsets into concatenated bitstream/table/
@@ -619,8 +617,7 @@ def _wavefront_decode(
         # is written at most once, so a global sort yields unique
         # ascending indices (empty slots = total_coeffs sort to the
         # tail) and the scatter carries indices_are_sorted +
-        # unique_indices — the fast TPU lowering (the unsorted scatter
-        # serializes: ~130 ms for 4 MP).
+        # unique_indices instead of serializing as an unsorted scatter.
         pos_s, val_s = jax.lax.sort(
             (final["out_pos"].reshape(-1), final["out_val"].reshape(-1)),
             num_keys=1,

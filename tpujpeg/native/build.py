@@ -1,14 +1,16 @@
 """On-demand g++ build of the native entropy stage (SURVEY.md §2 native
 rule: C++ host components, no Python stand-ins). The shared object is
-cached next to the source, keyed by a hash of the source + flags, so a
-source edit triggers exactly one rebuild. pybind11 is not available in
-this image; the C ABI + ctypes is the binding layer."""
+cached next to the source, keyed by a hash of the source, the flags and
+the host CPU (the build uses -march=native, so a checkout copied to
+another machine builds its own), so a source edit or a new host triggers
+exactly one rebuild. The C ABI + ctypes is the binding layer."""
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
@@ -30,9 +32,23 @@ _lock = threading.Lock()
 _lib = None
 
 
+def host_cpu_key() -> str:
+    """The host CPU's model name and feature flags (/proc/cpuinfo), the
+    inputs -march=native compiles for."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            txt = f.read()
+    except OSError:
+        return "unknown"
+    model = re.search(r"model name\s*:\s*(.*)", txt)
+    flags = re.search(r"flags\s*:\s*(.*)", txt)
+    return "|".join(m.group(1) if m else "" for m in (model, flags))
+
+
 def _so_path() -> str:
     with open(_SRC, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+        key = f.read() + " ".join(_FLAGS).encode() + host_cpu_key().encode()
+    h = hashlib.sha256(key).hexdigest()[:16]
     return os.path.join(_DIR, f"_entropy_{h}.so")
 
 

@@ -52,12 +52,14 @@ def decode_batch_on_device(
     datas: Sequence[bytes],
     config: DecodeConfig = DEFAULT_CONFIG,
 ) -> "BatchResult":
-    """Full on-chip decode (SURVEY.md §3.5 + north star BASELINE.json:5):
-    bitstreams ship to HBM once, the wavefront kernel entropy-decodes
-    every image's restart segments in ONE launch, and the Pallas
-    transform kernels produce RGB per geometry bucket — coefficients
-    never touch the host. `images` holds device arrays (jax.Array),
-    converted only if config.to_numpy."""
+    """Full on-device decode (SURVEY.md §3.5 + north star
+    BASELINE.json:5): bitstreams ship to device memory once, the
+    wavefront kernel entropy-decodes every image's restart segments in
+    ONE launch per geometry bucket with dequant + IDCT fused in, and the
+    same program finishes upsample/color — coefficients never touch the
+    host. `images` holds device arrays (jax.Array), converted only if
+    config.to_numpy. Only stream errors (JpegError) are isolated per
+    image; anything else — a device compile or runtime fault — raises."""
     from ..kernels import pipeline as kernel_pipeline
     from ..kernels import wavefront
 
@@ -95,8 +97,8 @@ def decode_batch_on_device(
                 # dequantizes per image in XLA (per_image_q), so a
                 # mixed-quality corpus (q85 + q70 of one encoder) shares
                 # a single launch. Huffman tables (in scan_group_key)
-                # are the real constraint — they are baked into the scan
-                # kernels as compile-time constants.
+                # are the real constraint — one table operand serves
+                # every lane of a scan kernel.
                 key = (
                     wavefront_prog.scan_group_key(j),
                     bitstream.color_space(j),
@@ -125,21 +127,16 @@ def decode_batch_on_device(
             except JpegError as e:
                 errors[i] = e
                 return
-            except Exception as e:
-                errors[i] = JpegError(f"internal decode failure: {e!r}")
-                return
             try:
-                # Outside the device scan kernels' scope (e.g. a
-                # progressive scan with no restart segmentation and a
-                # VMEM-row-oversize payload): host entropy, device
-                # transform.
+                # Outside the device scan kernels' scope (a progressive
+                # scan with no restart segmentation and a payload over
+                # MAX_WORDS): host entropy, device transform — on
+                # purpose, not as a fault fallback.
                 st0 = DecodeStats()
                 coeffs = _entropy_decode(j, config, st0)
                 _prog_emit(i, coeffs, engine=st0.entropy_engine)
             except JpegError as e:
                 errors[i] = e
-            except Exception as e:
-                errors[i] = JpegError(f"internal decode failure: {e!r}")
 
         def _prog_emit(i: int, state, out=None,
                        engine: str = "wavefront-prog", dc=None) -> None:
@@ -160,7 +157,7 @@ def decode_batch_on_device(
             st.n_components = frame.n_components
             st.progressive = True
             st.entropy_engine = engine
-            st.transform_engine = "pallas"
+            st.transform_engine = "fused" if state is None else "jnp"
             stats[i] = st
 
         # Two phases: DISPATCH every group's one-jit chain (no
@@ -178,8 +175,7 @@ def decode_batch_on_device(
                 # baked chain's compile; a singleton group (the common
                 # case — libjpeg optimizes tables per image) takes the
                 # table-DYNAMIC chain, whose one compile per scan-script
-                # shape serves every such file (~1.2x slower kernels vs
-                # a 10-30 min compile per file).
+                # shape serves every such file.
                 if config.prog_tables == "auto":
                     dyn = len(members) == 1
                 else:
@@ -196,27 +192,17 @@ def decode_batch_on_device(
                 # bad file can't take down its group.
                 for i in members:
                     _prog_one(i)
-            except Exception:
-                for i in members:
-                    _prog_one(i)
         # Pop as we resolve so each group's device RGB is released
         # before the next group materializes on host — peak HBM stays
         # one group's output, not the whole batch's.
         while pending:
             members, rgb, (errs_d, plans_d) = pending.pop(0)
-            try:
-                failures = wavefront_prog.resolve_scan_errors(
-                    errs_d, plans_d
-                )
-                for li, exc in failures.items():
-                    errors[members[li]] = exc
-                for li in range(len(members)):
-                    if li not in failures:
-                        _prog_emit(members[li], None, out=rgb[li])
-            except Exception:
-                # A runtime failure surfacing at readback: isolate.
-                for i in members:
-                    _prog_one(i)
+            failures = wavefront_prog.resolve_scan_errors(errs_d, plans_d)
+            for li, exc in failures.items():
+                errors[members[li]] = exc
+            for li in range(len(members)):
+                if li not in failures:
+                    _prog_emit(members[li], None, out=rgb[li])
 
     if not valid:
         return BatchResult(images=images, errors=errors, stats=stats)
@@ -225,7 +211,7 @@ def decode_batch_on_device(
     # mixed quantizers (per-lane one-hot dequant, up to MAX_QSETS sets)
     # and mixed restart intervals, so a q85/q86 pair shares ONE launch —
     # wavefront entropy + dequant + IDCT in one kernel, upsample/color
-    # kernels finish; coefficients never exist in HBM. Buckets the fused
+    # in the same program; coefficients never exist in device memory. Buckets the fused
     # path can't take (mixed Huffman tables, oversize segments, no
     # restart markers) fall back to the device coefficient decode, then
     # the XLA wavefront.
@@ -235,14 +221,14 @@ def decode_batch_on_device(
 
     from ..kernels import wavefront_pallas
 
-    def record(i, img, engine, frame, ncomp):
+    def record(i, img, engine, frame, ncomp, transform_engine="fused"):
         images[i] = np.asarray(img) if config.to_numpy else img
         st = DecodeStats()
         st.width, st.height = frame.width, frame.height
         st.n_components = ncomp
         st.entropy_engine = engine
         st.entropy_fallbacks = 0 if engine == "wavefront-fused" else 1
-        st.transform_engine = "pallas"
+        st.transform_engine = transform_engine
         stats[i] = st
 
     # Two phases over the buckets: DISPATCH every bucket's fused chain
@@ -268,13 +254,7 @@ def decode_batch_on_device(
     # pending loop above).
     while pending_rgb:
         members, sub, frame, ncomp, rgb, (err_d, plan_d) = pending_rgb.pop(0)
-        try:
-            failures = wavefront_pallas.resolve_rgb_errors(err_d, plan_d)
-        except Exception:
-            # Runtime failure surfacing at readback: slow-path the
-            # whole bucket so per-image isolation applies.
-            slow.append((members, sub, frame, ncomp))
-            continue
+        failures = wavefront_pallas.resolve_rgb_errors(err_d, plan_d)
         for local_i, i in enumerate(members):
             if local_i in failures:
                 errors[i] = failures[local_i]
@@ -347,7 +327,7 @@ def decode_batch_on_device(
                 color=bitstream.color_space(sub[q_members[0]]),
             )
             for slot, li in enumerate(q_members):
-                record(members[li], out[slot], engine, frame, ncomp)
+                record(members[li], out[slot], engine, frame, ncomp, "jnp")
 
     return BatchResult(images=images, errors=errors, stats=stats)
 
@@ -355,7 +335,7 @@ def decode_batch_on_device(
 @functools.lru_cache(maxsize=64)
 def _jit_batched_transform(key: Tuple, n_devices: int, axis: str):
     """One jitted, device-sharded, vmapped transform per geometry bucket."""
-    height, width, hv, color = key
+    height, width, hv, color, fancy, idct = key
     frame = bitstream.Frame(
         progressive=False,
         precision=8,
@@ -369,7 +349,10 @@ def _jit_batched_transform(key: Tuple, n_devices: int, axis: str):
     frame.finalize()
 
     def one(coeffs, qtabs):
-        return transform.transform_frame(frame, coeffs, qtabs, color=color)
+        return transform.transform_frame(
+            frame, coeffs, qtabs, fancy_upsampling=fancy, color=color,
+            idct=idct,
+        )
 
     batched = jax.vmap(one)
     if n_devices <= 1:
@@ -416,49 +399,13 @@ def decode_batch(
         buckets.setdefault(_bucket_key(jpeg), []).append((i, coeffs, qtabs))
 
     # Device stage: one launch per bucket.
-    use_pallas = config.transform_engine == "pallas"
     for key, entries in buckets.items():
         b = len(entries)
         ncomp = len(entries[0][1])
-        if use_pallas:
-            # Fused-kernel path (single dispatch per bucket). All images
-            # in a bucket share DQTs in practice; the kernel pipeline
-            # takes one qtab per component, so split the bucket further
-            # by quantizer identity.
-            from .. import bitstream as _bs
-            from ..kernels import pipeline as kernel_pipeline
-
-            height, width, hv, color = key
-            frame = _bs.Frame(
-                progressive=False, precision=8, height=height, width=width,
-                components=[
-                    _bs.Component(index=i, cid=i, h=h, v=v, tq=0)
-                    for i, (h, v) in enumerate(hv)
-                ],
-            )
-            frame.finalize()
-            by_q: Dict[Tuple, List] = {}
-            for e in entries:
-                qkey = tuple(bytes(q.astype(np.int32).tobytes()) for q in e[2])
-                by_q.setdefault(qkey, []).append(e)
-            for sub in by_q.values():
-                coeff_stack = [
-                    jnp.asarray(np.stack([e[1][ci] for e in sub]))
-                    for ci in range(ncomp)
-                ]
-                qtabs = [jnp.asarray(sub[0][2][ci]) for ci in range(ncomp)]
-                out = np.asarray(
-                    jax.block_until_ready(
-                        kernel_pipeline.transform_batch(
-                            frame, coeff_stack, qtabs, config, color=color
-                        )
-                    )
-                )
-                for slot, (i, _, _) in enumerate(sub):
-                    images[i] = out[slot]
-            continue
-
-        fn, _ = _jit_batched_transform(key, n_devices, config.mesh_axis)
+        fn, _ = _jit_batched_transform(
+            key + (config.fancy_upsampling, config.idct), n_devices,
+            config.mesh_axis,
+        )
         pad = (-b) % max(n_devices, 1)
         coeff_stack = []
         qtab_stack = []

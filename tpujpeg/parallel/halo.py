@@ -1,15 +1,15 @@
-"""MCU-row sharded single-image decode with ICI halo exchange
+"""MCU-row sharded single-image decode with halo exchange between devices
 (BASELINE.json:11 config 5; SURVEY.md §2.3 SP/CP row, §3.4).
 
 One giant image's MCU rows are sharded across devices on a 'rows' mesh
 axis. Each device runs dequant+IDCT+assembly on its own MCU rows; the
 h2v2 chroma upsampler needs one sample row of vertical context at each
-shard boundary, exchanged with jax.lax.ppermute over ICI — the decoder's
+shard boundary, exchanged with jax.lax.ppermute between devices — the decoder's
 ring/halo pattern (SURVEY.md §2.3 "ring attention" analogue). Color
 conversion is pointwise and needs no exchange.
 
 Also provides the cross-shard DC-predictor prefix fixup
-(BASELINE.json:5 "DC-predictor state via ICI collectives") used when an
+(BASELINE.json:5 "DC-predictor state via collectives") used when an
 entropy stream is split at non-restart boundaries: each shard's DC
 deltas are only locally summed, and the true predictors are recovered by
 an exclusive prefix-sum of per-shard totals over the mesh axis.
@@ -90,7 +90,7 @@ def _shard_geometry(frame: bitstream.Frame, n_shards: int) -> int:
 @functools.lru_cache(maxsize=32)
 def _build_sharded_transform(key: Tuple, n_shards: int, axis: str, fancy: bool):
     """Jitted shard_map'd transform for one frame geometry: per-shard
-    coefficient grids in, per-shard RGB rows out, halo rows over ICI.
+    coefficient grids in, per-shard RGB rows out, halo rows between devices.
 
     `key` carries `pad_mcu_rows`: extra all-zero MCU rows appended by
     decode_sharded so n_shards always divides the row count (SURVEY.md
@@ -181,7 +181,7 @@ def decode_sharded(
     (config 5). The entropy stage runs with the configured engine —
     restart-segmented streams go through the device wavefront kernel, so
     coefficients flow from the wavefront straight into the MCU-row
-    shards; the transform stage exchanges upsampling halos over ICI."""
+    shards; the transform stage exchanges upsampling halos between devices."""
     from ..decoder import _entropy_decode
     from ..stats import DecodeStats
 
@@ -199,7 +199,7 @@ def decode_sharded(
     # (coefficients stay device-resident); for marker-free streams the
     # skeleton-scan path decodes lanes sharded over the mesh with the
     # DC-predictor base crossing shards via dc_prefix_fixup
-    # (BASELINE.json:5 "DC-predictor state via ICI collectives"); host
+    # (BASELINE.json:5 "DC-predictor state via collectives"); host
     # engines otherwise.
     coeffs = None
     if not frame.progressive and config.entropy_engine in ("auto", "wavefront"):
@@ -246,7 +246,13 @@ def decode_sharded(
         grids.append(g)
     qtabs = [jnp.asarray(jpeg.qtables[c.tq]) for c in frame.components]
     out = jax.block_until_ready(fn(grids, qtabs))
-    return np.asarray(out)[: frame.height, : frame.width]
+    if config.to_numpy:
+        return np.asarray(out)[: frame.height, : frame.width]
+    # The row-sharded device array, cropped by a slice (not a gather).
+    return jax.lax.slice(
+        out, (0, 0) + (0,) * (out.ndim - 2),
+        (frame.height, frame.width) + out.shape[2:],
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +270,7 @@ def dc_prefix_fixup(local_dc_totals: jnp.ndarray, axis: str) -> jnp.ndarray:
     int32[n_components] per shard; returns the same shape: the value to
     add to every DC coefficient this shard decoded.
 
-    Implemented as a masked psum (one all-reduce over ICI): shard i sums
+    Implemented as a masked psum (one all-reduce): shard i sums
     contributions from shards j < i.
     """
     n = jax.lax.axis_size(axis)

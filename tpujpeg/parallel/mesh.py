@@ -1,9 +1,10 @@
 """Device mesh construction + multi-host init (SURVEY.md §2.2 #20, #24).
 
 The reference's device runtime is OpenCL platform/context discovery
-(SURVEY.md §3.2); the TPU-native equivalent is jax.distributed for the
-DCN rendezvous plus a named mesh over which pjit/shard_map place
-collectives on ICI.
+(SURVEY.md §3.2); the JAX equivalent is jax.distributed for the
+multi-host rendezvous plus a 1-D named mesh (the algorithm's shape; every
+GPU of a host reaches every other over NVLink) over which pjit/shard_map
+place collectives.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Sample-reconstruction stage: dequant + IDCT + upsample + color convert.
 
 SURVEY.md §2.1 components 11-17, expressed as pure vectorized jax.numpy
-over *all blocks of a component at once* — the TPU-first formulation of
-the reference's per-block OpenCL NDRange kernels (SURVEY.md §1 L2). This
-module is the semantic ground truth; tpujpeg/kernels/ holds the Pallas
-implementations that must match it exactly.
+over *all blocks of a component at once* — the data-parallel
+formulation of the reference's per-block OpenCL NDRange kernels
+(SURVEY.md §1 L2), which XLA fuses. This module is the semantic ground
+truth; the wavefront kernel's fused IDCT epilogue must match it
+exactly.
 
 Bit-exactness contract (SURVEY.md §7.2 hard-part 2): every op replicates
 libjpeg's fixed-point arithmetic —
@@ -19,13 +20,14 @@ All arithmetic is int32; right shifts are arithmetic, matching C.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .bitstream import Frame, NATURAL_TO_ZIGZAG
+from .bitstream import Frame, NATURAL_TO_ZIGZAG, ZIGZAG
 
 # libjpeg jidctint.c fixed-point constants, CONST_BITS = 13.
 CONST_BITS = 13
@@ -117,11 +119,8 @@ def dequantize(coeffs_zz: jnp.ndarray, qtab_zz: jnp.ndarray) -> jnp.ndarray:
 def idct8x8_islow(blocks: jnp.ndarray) -> jnp.ndarray:
     """Batched libjpeg islow IDCT. blocks: int32[N,8,8] natural-order
     *dequantized* coefficients. Returns uint8[N,8,8] samples (level
-    shifted +128, clamped) — bit-exact vs jpeg_idct_islow.
-
-    TPU note: this is the jnp semantic reference (SURVEY.md §2.1 #13);
-    kernels/idct.py provides the Pallas version of the same arithmetic.
-    """
+    shifted +128, clamped) — bit-exact vs jpeg_idct_islow (SURVEY.md
+    §2.1 #13)."""
     b = blocks.astype(jnp.int32)
     # Pass 1: process columns; input rows indexed by frequency.
     cols = [b[:, i, :] for i in range(8)]  # each [N, 8(cols)]
@@ -136,6 +135,40 @@ def idct8x8_islow(blocks: jnp.ndarray) -> jnp.ndarray:
         out_rows.append(jnp.stack(o, axis=-1))  # [N, 8]
     out = jnp.stack(out_rows, axis=1)  # [N, 8, 8]
     return jnp.clip(out + 128, 0, 255).astype(jnp.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _idct_matrix_zz() -> np.ndarray:
+    """M[k, n]: contribution of zigzag coefficient k to natural pixel n,
+    i.e. the 64x64 Kronecker IDCT basis with the zigzag permutation
+    folded into the rows (so inputs stay in zigzag order)."""
+    c = np.zeros((8, 8), dtype=np.float64)  # c[u, x] = basis
+    for u in range(8):
+        a = np.sqrt(0.125) if u == 0 else 0.5
+        for x in range(8):
+            c[u, x] = a * np.cos((2 * x + 1) * u * np.pi / 16.0)
+    # pixel (x, y) = sum_{u,v} C[u,x] C[v,y] F[u,v];  natural n = x*8+y,
+    # natural freq m = u*8+v -> M_nat[m, n] = C[u,x]*C[v,y].
+    m_nat = np.einsum("ux,vy->uvxy", c, c).reshape(64, 64)
+    return m_nat[np.asarray(ZIGZAG)].astype(np.float32)
+
+
+def dequant_idct_matmul(coeffs_zz: jnp.ndarray, qtab_zz) -> jnp.ndarray:
+    """config idct='matmul': dequant + zigzag + IDCT as one
+    [N, 64] @ [64, 64] float32 product. int32[N, 64] zigzag coeffs ->
+    uint8[N, 8, 8]. A float basis against libjpeg's fixed point, so not
+    bit-exact: at most 1 LSB off on a small share of samples. The
+    product runs at HIGHEST precision — TF32 would keep only about three
+    decimal digits and break that bound."""
+    m = jnp.asarray(_idct_matrix_zz())
+    deq = (coeffs_zz * qtab_zz).astype(jnp.float32)
+    pix = jax.lax.dot_general(
+        deq, m, (((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
+    )
+    out = jnp.round(pix) + 128
+    return jnp.clip(out, 0, 255).astype(jnp.uint8).reshape(-1, 8, 8)
 
 
 def blocks_to_plane(samples: jnp.ndarray, padded_hb: int, padded_wb: int) -> jnp.ndarray:
@@ -306,9 +339,11 @@ def transform_frame(
     qtabs_zz: Sequence[jnp.ndarray],
     fancy_upsampling: bool = True,
     color: Optional[str] = None,
+    idct: str = "islow",
 ) -> jnp.ndarray:
     """coeffs[ci]: int32[padded_hb*padded_wb, 64] zigzag coefficients.
-    qtabs_zz[ci]: int32[64] zigzag quantizer for that component.
+    qtabs_zz[ci]: int32[64] zigzag quantizer for that component. idct:
+    'islow' (bit-exact) or 'matmul' (dequant_idct_matmul).
     Returns uint8[H, W, 3] (or [H, W] for grayscale, [H, W, 4] for
     CMYK/YCCK). Jit-safe: all shapes are static given the frame
     geometry."""
@@ -316,8 +351,11 @@ def transform_frame(
         color = default_color(frame.n_components)
     planes: List[jnp.ndarray] = []
     for ci, c in enumerate(frame.components):
-        deq = dequantize(jnp.asarray(coeffs[ci]), jnp.asarray(qtabs_zz[ci]))
-        samples = idct8x8_islow(deq)
+        cz, qz = jnp.asarray(coeffs[ci]), jnp.asarray(qtabs_zz[ci])
+        if idct == "matmul":
+            samples = dequant_idct_matmul(cz, qz)
+        else:
+            samples = idct8x8_islow(dequantize(cz, qz))
         plane = blocks_to_plane(samples, c.padded_hb, c.padded_wb)
         # Crop MCU padding BEFORE upsampling: libjpeg upsamples only
         # downsampled_width/height real samples, so edge replication in
