@@ -264,26 +264,27 @@ def phase_d(ctx: Ctx) -> None:
           f"transform.py on CPU ({time.perf_counter() - t0:.2f} s)")
 
     # Progressive scan kernels vs native progressive entropy: a group
-    # of two (baked tables) and the table-dynamic chain.
-    pdata = ctx.make(2048, 2048, seed=14, quality=85, progressive=True,
-                     restart_blocks=8)
-    pj = bs.parse(pdata)
-    ref = ne.decode_all_scans(pj)
+    # of two sharing tables, then a file with other tables through the
+    # same compiled chain (tables are runtime operands).
+    pdatas = [ctx.make(2048, 2048, seed=s, quality=85, progressive=True,
+                       restart_blocks=8) for s in (14, 15)]
+    pjs = [bs.parse(d) for d in pdatas]
+    ref = ne.decode_all_scans(pjs[0])
     t0 = time.perf_counter()
-    states, dcs, failures = wprog.decode_all_scans_batch([pj, pj])
+    states, dcs, failures = wprog.decode_all_scans_batch([pjs[0], pjs[0]])
     assert not failures, failures
     for st, dc in zip(states, dcs):
         for ci, (a, s, c) in enumerate(zip(ref, st, dc)):
             m = np.array(s)
             m[:, 0] = np.asarray(c)
             assert np.array_equal(a, m), f"progressive comp {ci}"
-    rgb, _layout, failures = wprog.decode_all_scans_to_rgb_batch(
-        [pj], dyn=True
-    )
-    assert not failures, failures
-    ctx.check(rgb[0], pdata, "progressive dynamic-table rgb")
-    print(f"  progressive scan kernels, 2048^2 ({len(pj.scans)} scans): "
-          f"exact vs native, baked and dynamic tables "
+    assert wprog.scan_group_key(pjs[0]) != wprog.scan_group_key(pjs[1])
+    for d, j in zip(pdatas, pjs):
+        rgb, _layout, failures = wprog.decode_all_scans_to_rgb_batch([j])
+        assert not failures, failures
+        ctx.check(rgb[0], d, "progressive rgb")
+    print(f"  progressive scan kernels, 2048^2 ({len(pjs[0].scans)} scans): "
+          f"exact vs native and the plain reference, two table sets "
           f"({time.perf_counter() - t0:.2f} s incl. compile)")
 
     # Matmul IDCT at HIGHEST vs islow: a float basis against fixed

@@ -1,7 +1,7 @@
 """Device-side progressive entropy decode (kernels/wavefront_prog) vs
-the Python oracle and PIL (SURVEY.md §2.1 #10, §3.3; VERDICT round 1
-item 3). All four T.81 §G scan kinds run on device over restart-segment
-lanes; interpret mode on CPU here, same code on the real chip."""
+the Python oracle and PIL (SURVEY.md §2.1 #10, §3.3). All four T.81 §G
+scan kinds run on device over restart-segment lanes; interpret mode on
+CPU here, the same code compiled for the GPU."""
 
 import io
 
@@ -311,35 +311,24 @@ def test_prog_batch_mixed_quantizers_share_group():
         np.testing.assert_array_equal(np.asarray(img), pil_decode(d))
 
 
-def test_ac_first_table_dynamic_matches_baked():
-    """The AC-first kernel fed its Huffman table as a RUNTIME operand
-    must produce EXACTLY what it produces from the baked constants —
-    same coefficients, same error vector — for every AC-first scan of a
-    progressive stream."""
-    from tpujpeg.kernels.wavefront_pallas import pack_tables
-
-    data = make_jpeg(96, 80, seed=91, progressive=True, subsampling=2,
-                     restart_blocks=8)
-    jpeg = bitstream.parse(data)
-    found = 0
-    for k, scan in enumerate(jpeg.scans):
-        if scan.ss == 0 or scan.ah != 0:
-            continue
-        found += 1
-        plan = wprog.ScanPlan([jpeg], k)
-        sk = wprog._scan_static([jpeg], k, plan)
-        static_baked = (sk.tbls, sk.W, sk.ss, sk.se, sk.al,
-                        sk.lane_group)
-        static_dyn = (sk.W, sk.ss, sk.se, sk.al, sk.lane_group)
-        args = (plan.bits, plan.lane_m, plan.seg_bits)
-        out_b, err_b = wprog.run_ac_first_jit(
-            *args, static=static_baked, n_groups=plan.n_groups,
-            n_mcus=plan.n_mcus,
-        )
-        out_d, err_d = wprog.run_ac_first_jit(
-            *args, static=static_dyn, n_groups=plan.n_groups,
-            n_mcus=plan.n_mcus, tbl=pack_tables(sk.tbls),
-        )
-        np.testing.assert_array_equal(np.asarray(err_b), np.asarray(err_d))
-        np.testing.assert_array_equal(np.asarray(out_b), np.asarray(out_d))
-    assert found >= 2
+def test_prog_chain_shared_across_table_sets():
+    """Huffman tables ride as runtime operands: two files with different
+    optimized tables but one scan-script shape map to ONE compiled chain
+    (equal jit keys), and each decodes exactly to the oracle through it."""
+    datas = [
+        make_jpeg(96, 80, seed=s, progressive=True, subsampling=2,
+                  restart_blocks=8)
+        for s in (91, 92)
+    ]
+    jpegs = [bitstream.parse(d) for d in datas]
+    assert wprog.scan_group_key(jpegs[0]) != wprog.scan_group_key(jpegs[1])
+    keys = [wprog._chain_statics([j])[0] for j in jpegs]
+    assert keys[0] == keys[1]
+    for j in jpegs:
+        states, dcs, failures = wprog.decode_all_scans_batch([j])
+        assert not failures
+        ref = huffman.decode_all_scans(j)
+        for ci, (a, b, d) in enumerate(zip(ref, states[0], dcs[0])):
+            merged = np.array(b)
+            merged[:, 0] = np.asarray(d)
+            np.testing.assert_array_equal(a, merged, err_msg=f"comp {ci}")

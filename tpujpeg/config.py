@@ -30,14 +30,5 @@ class DecodeConfig:
     # Mesh axis name used by batched / sharded decode paths.
     mesh_axis: str = "data"
 
-    # Progressive scan chains' Huffman tables: 'baked' compiles the
-    # tables into the chain as constants (every distinct optimized-table
-    # set costs a fresh chain compile — libjpeg emits per-image tables
-    # for progressive); 'dynamic' passes them as runtime operands (one
-    # compiled chain per scan-script shape); 'auto' uses dynamic for
-    # singleton groups and baked for groups that share tables. The scan
-    # kernels read the table operand the same way in both forms.
-    prog_tables: str = "auto"  # 'auto' | 'baked' | 'dynamic'
-
 
 DEFAULT_CONFIG = DecodeConfig()

@@ -2,9 +2,9 @@
 bucketed by frame geometry, transformed as one data-parallel device pass
 per bucket (SURVEY.md §3.5 call stack).
 
-Fault isolation (SURVEY.md §5): a corrupt image marks its slot failed
-and never kills the batch — host entropy decode runs per image under a
-try/except, and only clean images reach the device stage.
+Fault isolation (SURVEY.md §5): a corrupt image (any JpegError) marks
+its slot failed and never kills the batch; anything else — a device
+compile or runtime fault — raises.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ def decode_batch_on_device(
             j = bitstream.parse(data)
             jpegs[i] = j
             (progressive if j.frame.progressive else valid).append(i)
-        except Exception as e:
-            errors[i] = e if isinstance(e, JpegError) else JpegError(repr(e))
+        except JpegError as e:
+            errors[i] = e
 
     # Progressive images: device scan kernels, cross-image batched.
     # Images sharing a scan_group_key (same geometry + scan script +
@@ -92,19 +92,16 @@ def decode_batch_on_device(
         groups: Dict[Tuple, List[int]] = {}
         for i in progressive:
             j = jpegs[i]
-            try:
-                # Quantizers are NOT part of the key: the one-jit chain
-                # dequantizes per image in XLA (per_image_q), so a
-                # mixed-quality corpus (q85 + q70 of one encoder) shares
-                # a single launch. Huffman tables (in scan_group_key)
-                # are the real constraint — one table operand serves
-                # every lane of a scan kernel.
-                key = (
-                    wavefront_prog.scan_group_key(j),
-                    bitstream.color_space(j),
-                )
-            except Exception:
-                key = ("solo", i)
+            # Quantizers are NOT part of the key: the one-jit chain
+            # dequantizes per image in XLA (per_image_q), so a
+            # mixed-quality corpus (q85 + q70 of one encoder) shares a
+            # single launch. Huffman tables (in scan_group_key) are the
+            # real constraint — one table operand serves every lane of
+            # a scan kernel.
+            key = (
+                wavefront_prog.scan_group_key(j),
+                bitstream.color_space(j),
+            )
             groups.setdefault(key, []).append(i)
 
         def _prog_one(i: int) -> None:
@@ -171,18 +168,11 @@ def decode_batch_on_device(
                 sub = [jpegs[i] for i in members]
                 # ONE jitted program per group: scan kernels + transform
                 # (mixed quantizers fine — per-image dequant in XLA).
-                # Table policy: groups that SHARE tables amortize the
-                # baked chain's compile; a singleton group (the common
-                # case — libjpeg optimizes tables per image) takes the
-                # table-DYNAMIC chain, whose one compile per scan-script
-                # shape serves every such file.
-                if config.prog_tables == "auto":
-                    dyn = len(members) == 1
-                else:
-                    dyn = config.prog_tables == "dynamic"
+                # Tables are runtime operands, so one compile per
+                # scan-script shape serves every table set.
                 rgb, _layout, deferred = (
                     wavefront_prog.decode_all_scans_to_rgb_batch(
-                        sub, config, defer_errors=True, dyn=dyn
+                        sub, config, defer_errors=True
                     )
                 )
                 pending.append((members, rgb, deferred))
@@ -389,9 +379,6 @@ def decode_batch(
             qtabs = [jpeg.qtables[c.tq] for c in jpeg.frame.components]
         except JpegError as e:
             errors[i] = e
-            continue
-        except Exception as e:  # defensive: never kill the batch
-            errors[i] = JpegError(f"internal decode failure: {e!r}")
             continue
         st.width, st.height = jpeg.frame.width, jpeg.frame.height
         st.n_components = jpeg.frame.n_components
